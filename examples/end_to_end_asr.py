@@ -1,8 +1,8 @@
 """End-to-end DSR demo: synthesize a corpus, train phone GMM-HMMs, build a
 bigram HCLG, then beamform + decode noisy 8-channel eval audio and report
-WER.  (BASELINE.json configs 1 + 4 at small scale; runs on CPU or TPU.)
+WER.  (BASELINE.json configs 1 + 4 at small scale; runs on CPU or GPU.)
 
-    /opt/venv/bin/python examples/end_to_end_asr.py
+    python examples/end_to_end_asr.py
 """
 
 import os
@@ -14,16 +14,16 @@ import numpy as np
 
 from golden import corpus as gcorpus
 from golden import room as groom
-from dsr_tpu.asr import phone_task
-from dsr_tpu.asr.am import gmm as jgmm
-from dsr_tpu.asr.decoder import wfst_decoder as wd
-from dsr_tpu.asr.fsm import hclg, lm
-from dsr_tpu.asr.fsm.packed import pack
-from dsr_tpu.asr.train import trainer
-from dsr_tpu.config import ArrayGeometry, BeamformerConfig, FilterbankConfig
-from dsr_tpu.ops import features as jft
-from dsr_tpu.pipeline import DsrPipeline
-from dsr_tpu.utils.metrics import RtfMeter, WerScorer
+from dsr.asr import phone_task
+from dsr.asr.am import gmm as jgmm
+from dsr.asr.decoder import wfst_decoder as wd
+from dsr.asr.fsm import hclg, lm
+from dsr.asr.fsm.packed import pack
+from dsr.asr.train import trainer
+from dsr.config import ArrayGeometry, BeamformerConfig, FilterbankConfig
+from dsr.ops import features as jft
+from dsr.pipeline import DsrPipeline
+from dsr.utils.metrics import RtfMeter, WerScorer
 
 SR = 16000.0
 

@@ -3,7 +3,7 @@ chunks; the StreamingRecognizer carries frontend / beamformer / decoder
 state across them and emits the SAME words as offline decoding
 (SURVEY.md §5 long-context story, through the decoder).
 
-    /opt/venv/bin/python examples/streaming_asr.py
+    python examples/streaming_asr.py
 """
 
 import os
@@ -16,16 +16,16 @@ import jax.numpy as jnp
 
 from golden import corpus as gcorpus
 from golden import room as groom
-from dsr_tpu.asr import phone_task
-from dsr_tpu.asr.am import gmm as jgmm
-from dsr_tpu.asr.decoder import topk_decoder as tk
-from dsr_tpu.asr.fsm import hclg, lm
-from dsr_tpu.asr.fsm.packed import pack
-from dsr_tpu.asr.train import trainer
-from dsr_tpu.config import ArrayGeometry, BeamformerConfig, FilterbankConfig
-from dsr_tpu.ops import features as jft
-from dsr_tpu.ops import filterbank as jfb
-from dsr_tpu.pipeline import DsrPipeline, StreamingRecognizer
+from dsr.asr import phone_task
+from dsr.asr.am import gmm as jgmm
+from dsr.asr.decoder import topk_decoder as tk
+from dsr.asr.fsm import hclg, lm
+from dsr.asr.fsm.packed import pack
+from dsr.asr.train import trainer
+from dsr.config import ArrayGeometry, BeamformerConfig, FilterbankConfig
+from dsr.ops import features as jft
+from dsr.ops import filterbank as jfb
+from dsr.pipeline import DsrPipeline, StreamingRecognizer
 
 SR = 16000.0
 

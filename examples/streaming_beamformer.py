@@ -1,12 +1,12 @@
 """Streaming DSR demo: native ring-buffer WAV reader → chunked beamforming.
 
 Writes a synthetic 8-channel WAV, then streams it through the native C++
-sample streamer (`dsr_tpu.utils.audio.SampleStream`) into the chunked
+sample streamer (`dsr.utils.audio.SampleStream`) into the chunked
 pipeline, writing the enhanced single-channel WAV out — the reference's
 pull-model file→beamformer→file chain (SURVEY.md §3.1), streaming-state
-and all, on the TPU-native stack.
+and all, on the batched JAX stack.
 
-    /opt/venv/bin/python examples/streaming_beamformer.py
+    python examples/streaming_beamformer.py
 """
 
 import os
@@ -18,9 +18,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 
 from golden import room as groom
-from dsr_tpu.config import ArrayGeometry, BeamformerConfig, FilterbankConfig
-from dsr_tpu.pipeline import DsrPipeline
-from dsr_tpu.utils import audio
+from dsr.config import ArrayGeometry, BeamformerConfig, FilterbankConfig
+from dsr.pipeline import DsrPipeline
+from dsr.utils import audio
 
 SR = 16000.0
 

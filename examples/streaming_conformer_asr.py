@@ -6,7 +6,7 @@ steps → words printed as they are emitted, equal to the offline
 chunk-causal decode (the CTC analogue of examples/streaming_asr.py's
 WFST path).
 
-Run: /opt/venv/bin/python examples/streaming_conformer_asr.py  (CPU ok)
+Run: python examples/streaming_conformer_asr.py  (CPU ok)
 """
 
 import os
@@ -19,19 +19,19 @@ import numpy as np
 
 def main():
     import jax
-    if os.environ.get("STREAM_TPU") != "1":
+    if os.environ.get("STREAM_FULL") != "1":
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
     import optax
 
     from golden import corpus as gcorpus
     from golden import room as groom
-    from dsr_tpu.config import (ArrayGeometry, BeamformerConfig,
+    from dsr.config import (ArrayGeometry, BeamformerConfig,
                                 FilterbankConfig)
-    from dsr_tpu.models.streaming_conformer import StreamingConformerCtc
-    from dsr_tpu.ops import features as jft
-    from dsr_tpu.ops import filterbank as jfb
-    from dsr_tpu.pipeline import DsrPipeline, StreamingCtcRecognizer
+    from dsr.models.streaming_conformer import StreamingConformerCtc
+    from dsr.ops import features as jft
+    from dsr.ops import filterbank as jfb
+    from dsr.pipeline import DsrPipeline, StreamingCtcRecognizer
 
     SR = 16000.0
     vocab = gcorpus.VOCAB

@@ -1,6 +1,6 @@
-"""Golden (NumPy/SciPy) reference implementations for the DSR-TPU framework.
+"""Golden (NumPy/SciPy) reference implementations for the DSR framework.
 
-Every algorithm in `dsr_tpu` is validated `allclose` against this package
+Every algorithm in `dsr` is validated `allclose` against this package
 (SURVEY.md §4: "Golden model first").  Code here is written for clarity and
 numerical fidelity to the mathematical definitions, NOT for speed, and it is
 the single source of truth for conventions (window orientation, FFT sign,

@@ -1,7 +1,7 @@
 """Reference CTC prefix beam search (NumPy, from the math) — the
-conventions oracle for dsr_tpu.models.conformer.beam_ctc_decode.
+conventions oracle for dsr.models.conformer.beam_ctc_decode.
 
-Implements the SAME algorithm contract as the TPU scan: fixed beam
+Implements the SAME algorithm contract as the JAX scan: fixed beam
 width, per-beam stay mass (blank + repeat merged; a repeated label only
 crosses a blank), extensions from the full mass except blocked repeats,
 optional shallow fusion `lm_weight·lm[last, c] + bonus`, NO cross-parent

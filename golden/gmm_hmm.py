@@ -8,7 +8,7 @@ WFST decoding lives in the fsm/decoder modules.
 
 Model: per-state diagonal GMMs; utterance/word HMMs are left-to-right with
 self-loops; a decode "graph" here is a dense (S, S) log-transition matrix —
-exact and small, the golden oracle for the batched TPU decoder.
+exact and small, the golden oracle for the batched decoder.
 """
 
 from __future__ import annotations

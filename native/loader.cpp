@@ -7,7 +7,7 @@
 // map; `dsr_loader_next` emits the next `batch` consecutive utterances,
 // zero-padded to the caller's row stride.  A sliding in-flight window
 // bounds memory.  All exported symbols use the C ABI (ctypes on the
-// Python side, dsr_tpu/utils/audio.py::BatchLoader).
+// Python side, dsr/utils/audio.py::BatchLoader).
 
 #include <atomic>
 #include <condition_variable>

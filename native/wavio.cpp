@@ -1,4 +1,4 @@
-// Native audio I/O + streaming runtime for dsr_tpu.
+// Native audio I/O + streaming runtime for dsr.
 //
 // Plays the role of the reference's libsndfile-backed SampleFeature /
 // BlockSizeConversion stages (SURVEY.md §2.1 feature row [K]): RIFF/WAVE

@@ -1,12 +1,12 @@
 // Native WFST build-time core: compose / determinize / rmepsilon / connect
 // over the tropical semiring.
 //
-// TPU-native framework layering: the composed graph is frozen to packed
-// int32 arc tensors and decoded on-device (dsr_tpu/asr/fsm/packed.py,
+// Framework layering: the composed graph is frozen to packed
+// int32 arc tensors and decoded on-device (dsr/asr/fsm/packed.py,
 // asr/decoder/); graph CONSTRUCTION is host-side and irregular — exactly
 // where the reference used raw C++ (asr/fsm/fsm.{h,cc} [K], tree
-// unavailable, SURVEY.md §0).  Semantics mirror dsr_tpu/asr/fsm/wfst.py,
-// the tested golden oracle; dsr_tpu/asr/fsm/native.py binds via ctypes and
+// unavailable, SURVEY.md §0).  Semantics mirror dsr/asr/fsm/wfst.py,
+// the tested golden oracle; dsr/asr/fsm/native.py binds via ctypes and
 // falls back to the Python implementation when this library is absent.
 //
 // Build: make -C native  (adds this TU to libdsrnative.so)

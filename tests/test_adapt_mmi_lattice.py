@@ -6,17 +6,17 @@ import pytest
 import jax.numpy as jnp
 
 from golden import corpus as gcorpus
-from dsr_tpu.asr import phone_task
-from dsr_tpu.asr import path as apath
-from dsr_tpu.asr.adapt import fmllr, mllr
-from dsr_tpu.asr.am import gmm as jgmm
-from dsr_tpu.asr.decoder import lattice as jlat
-from dsr_tpu.asr.decoder import topk_decoder as tk
-from dsr_tpu.asr.decoder import wfst_decoder as wd
-from dsr_tpu.asr.fsm import hclg, lm
-from dsr_tpu.asr.fsm.packed import pack
-from dsr_tpu.asr.train import ml, mmi, trainer
-from dsr_tpu.ops import features as jft
+from dsr.asr import phone_task
+from dsr.asr import path as apath
+from dsr.asr.adapt import fmllr, mllr
+from dsr.asr.am import gmm as jgmm
+from dsr.asr.decoder import lattice as jlat
+from dsr.asr.decoder import topk_decoder as tk
+from dsr.asr.decoder import wfst_decoder as wd
+from dsr.asr.fsm import hclg, lm
+from dsr.asr.fsm.packed import pack
+from dsr.asr.train import ml, mmi, trainer
+from dsr.ops import features as jft
 
 SR = 16000.0
 
@@ -128,7 +128,7 @@ def test_force_align_segments(system):
 
 
 def test_sat_iteration_improves_per_speaker_fit(system):
-    from dsr_tpu.asr.adapt import fmllr, sat
+    from dsr.asr.adapt import fmllr, sat
 
     task, params, graph, feats, transcripts = system
     shifts = {"spkA": np.r_[np.float32([1.2, -0.6, 0.4]), np.zeros(10, np.float32)],
@@ -272,7 +272,7 @@ def test_sat_batched_matches_host_loop(system):
     """sat_iteration_batched (one jitted SPMD program, speakers on a
     batch axis) equals the host-Python per-speaker loop when both use the
     same fixed occupancies (round-2 VERDICT weak #7)."""
-    from dsr_tpu.asr.adapt import sat
+    from dsr.asr.adapt import sat
 
     task, params, graph, feats, transcripts = system
     T = min(f.shape[0] for f in feats[:4])

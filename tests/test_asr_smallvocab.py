@@ -8,15 +8,15 @@ import pytest
 from golden import corpus as gcorpus
 from golden import gmm_hmm as ggh
 from golden import room as groom
-from dsr_tpu.asr import smallvocab
-from dsr_tpu.asr.am import gmm as jgmm
-from dsr_tpu.asr.decoder import viterbi as jvit
-from dsr_tpu.asr.train import trainer
-from dsr_tpu.config import ArrayGeometry, FilterbankConfig
-from dsr_tpu.ops import beamforming as jbf
-from dsr_tpu.ops import features as jft
-from dsr_tpu.ops import filterbank as jfb
-from dsr_tpu.utils.metrics import WerScorer
+from dsr.asr import smallvocab
+from dsr.asr.am import gmm as jgmm
+from dsr.asr.decoder import viterbi as jvit
+from dsr.asr.train import trainer
+from dsr.config import ArrayGeometry, FilterbankConfig
+from dsr.ops import beamforming as jbf
+from dsr.ops import features as jft
+from dsr.ops import filterbank as jfb
+from dsr.utils.metrics import WerScorer
 
 SR = 16000.0
 

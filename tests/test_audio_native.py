@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from dsr_tpu.utils import audio
+from dsr.utils import audio
 
 
 def test_wav_roundtrip_pcm16(tmp_path):
@@ -45,7 +45,7 @@ def test_sample_stream_reblocks(tmp_path):
 
 
 def test_block_size_converter_rechunks_exactly():
-    from dsr_tpu.utils.audio import BlockSizeConverter
+    from dsr.utils.audio import BlockSizeConverter
 
     rng = np.random.default_rng(0)
     x = rng.standard_normal((2, 10_000)).astype(np.float32)
@@ -72,7 +72,7 @@ def test_block_size_converter_eager_and_reuse_safe():
     """push() must consume its input immediately (no lazy generator) and the
     outputs must survive the caller reusing its read buffer (the typical
     streaming pattern)."""
-    from dsr_tpu.utils.audio import BlockSizeConverter
+    from dsr.utils.audio import BlockSizeConverter
 
     conv = BlockSizeConverter(4)
     buf = np.arange(6, dtype=np.float32)
@@ -96,7 +96,7 @@ def test_block_size_converter_eager_and_reuse_safe():
 def test_batch_loader_ordered_prefetch(tmp_path):
     """Native corpus loader: multi-worker prefetch preserves corpus order,
     pads rows, reports lengths; errors surface as IOError."""
-    from dsr_tpu.utils.audio import BatchLoader, write_wav
+    from dsr.utils.audio import BatchLoader, write_wav
 
     rng = np.random.default_rng(0)
     paths, refs = [], []
@@ -153,7 +153,7 @@ def test_batch_loader_prefetch_overlaps_consumer_work(tmp_path):
     cost up front)."""
     import time
 
-    from dsr_tpu.utils.audio import BatchLoader, write_wav
+    from dsr.utils.audio import BatchLoader, write_wav
 
     rng = np.random.default_rng(1)
     paths = []

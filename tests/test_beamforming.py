@@ -6,9 +6,9 @@ import pytest
 from golden import beamforming as gbf
 from golden import filterbank as gfb
 from golden import room as groom
-from dsr_tpu.config import ArrayGeometry, FilterbankConfig
-from dsr_tpu.ops import beamforming as jbf
-from dsr_tpu.ops import filterbank as jfb
+from dsr.config import ArrayGeometry, FilterbankConfig
+from dsr.ops import beamforming as jbf
+from dsr.ops import filterbank as jfb
 
 SR = 16000.0
 M = 64

@@ -11,15 +11,15 @@ import pytest
 
 from golden import corpus as gcorpus
 from golden import room as groom
-from dsr_tpu.asr import phone_task
-from dsr_tpu.asr.am import gmm as jgmm
-from dsr_tpu.asr.decoder import topk_decoder as tk
-from dsr_tpu.asr.train import trainer
-from dsr_tpu.config import ArrayGeometry, FilterbankConfig
-from dsr_tpu.ops import beamforming as jbf
-from dsr_tpu.ops import features as jft
-from dsr_tpu.ops import filterbank as jfb
-from dsr_tpu.utils.metrics import WerScorer
+from dsr.asr import phone_task
+from dsr.asr.am import gmm as jgmm
+from dsr.asr.decoder import topk_decoder as tk
+from dsr.asr.train import trainer
+from dsr.config import ArrayGeometry, FilterbankConfig
+from dsr.ops import beamforming as jbf
+from dsr.ops import features as jft
+from dsr.ops import filterbank as jfb
+from dsr.utils.metrics import WerScorer
 import tools.exp_bf_lvcsr as ebf
 
 SR = 16000.0

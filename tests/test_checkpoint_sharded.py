@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import pytest
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from dsr_tpu.utils import checkpoint as ckpt
+from dsr.utils import checkpoint as ckpt
 
 
 @pytest.fixture(scope="module")
@@ -36,7 +36,7 @@ def test_sharded_roundtrip_values_and_shardings(tmp_path, mesh):
 
 
 def test_sharded_roundtrip_complex_beamformer_state(tmp_path, mesh):
-    """GSC adaptive weights are complex64 — split/recombined on device."""
+    """GSC adaptive weights are complex64 — saved and restored as such."""
     K, N = 16, 4
     wa_r = np.random.default_rng(0).standard_normal((K, N - 1)).astype(np.float32)
     wa_i = np.random.default_rng(1).standard_normal((K, N - 1)).astype(np.float32)
@@ -67,8 +67,8 @@ def test_restore_rejects_mismatched_layout(tmp_path, mesh):
 def test_midstream_training_resume_bit_identical(tmp_path, mesh):
     """Interrupt-after-iteration-1 + restore == uninterrupted 2 iterations,
     bit for bit (params AND accumulators sharded over the mesh)."""
-    from dsr_tpu.asr.am import gmm as jgmm
-    from dsr_tpu.asr.train import ml
+    from dsr.asr.am import gmm as jgmm
+    from dsr.asr.train import ml
 
     S, C, D, U, T = 8, 2, 6, 8, 20
     rng = np.random.default_rng(0)

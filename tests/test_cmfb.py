@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 
 from golden import cmfb as gcmfb
-from dsr_tpu.ops import cmfb as jcmfb
+from dsr.ops import cmfb as jcmfb
 
 
 @pytest.fixture(scope="module")

@@ -5,8 +5,8 @@ import pytest
 
 from golden import convolution as gconv
 from golden import modal as gmodal
-from dsr_tpu.ops import convolution as jconv
-from dsr_tpu.ops import modal as jmodal
+from dsr.ops import convolution as jconv
+from dsr.ops import modal as jmodal
 
 
 def test_overlap_add_save_match_direct():

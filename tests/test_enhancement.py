@@ -7,10 +7,10 @@ from golden import aec as gaec
 from golden import dereverb as gder
 from golden import postfilter as gpf
 from golden import sad as gsad
-from dsr_tpu.ops import aec as jaec
-from dsr_tpu.ops import dereverb as jder
-from dsr_tpu.ops import postfilter as jpf
-from dsr_tpu.ops import sad as jsad
+from dsr.ops import aec as jaec
+from dsr.ops import dereverb as jder
+from dsr.ops import postfilter as jpf
+from dsr.ops import sad as jsad
 
 
 def _snapshots(rng, N=4, T=30, K=17, coherent_frac=0.7):
@@ -153,7 +153,7 @@ def test_segments_from_vad():
 
 
 def test_objective_measures():
-    from dsr_tpu.utils import objective
+    from dsr.utils import objective
 
     rng = np.random.default_rng(0)
     ref = np.sin(2 * np.pi * 440 * np.arange(16000) / 16000.0)

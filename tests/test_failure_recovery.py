@@ -12,8 +12,8 @@ import time
 
 import numpy as np
 
-from dsr_tpu.utils.checkpoint import DecodeProgress
-from dsr_tpu.utils.heartbeat import LeaseBoard, run_recoverable
+from dsr.utils.checkpoint import DecodeProgress
+from dsr.utils.heartbeat import LeaseBoard, run_recoverable
 
 UTTS = [f"utt{i:03d}" for i in range(12)]
 
@@ -53,8 +53,8 @@ def test_killed_worker_batch_is_recovered(tmp_path):
     child_src = f"""
 import json, sys, time
 sys.path.insert(0, {json.dumps(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))})
-from dsr_tpu.utils.checkpoint import DecodeProgress
-from dsr_tpu.utils.heartbeat import LeaseBoard
+from dsr.utils.checkpoint import DecodeProgress
+from dsr.utils.heartbeat import LeaseBoard
 board = LeaseBoard({json.dumps(lease_dir)}, worker_id="victim")
 prog = DecodeProgress({json.dumps(prog_path)})
 assert board.try_claim("b000000")

@@ -5,8 +5,8 @@ import numpy as np
 
 from golden import features as gft
 from golden import lpc as glpc
-from dsr_tpu.ops import features as jft
-from dsr_tpu.ops import lpc as jlpc
+from dsr.ops import features as jft
+from dsr.ops import lpc as jlpc
 
 SR = 16000.0
 

@@ -4,8 +4,8 @@ import numpy as np
 import pytest
 
 from golden import filterbank as gfb
-from dsr_tpu.config import FilterbankConfig
-from dsr_tpu.ops import filterbank as jfb
+from dsr.config import FilterbankConfig
+from dsr.ops import filterbank as jfb
 
 CFG = FilterbankConfig(M=64, m=4, r=2)
 

@@ -11,10 +11,12 @@ import jax.numpy as jnp
 import optax
 import pytest
 
-from dsr_tpu.config import FilterbankConfig
-from dsr_tpu.models import joint as mj
-from dsr_tpu.models.conformer import ctc_loss
-from dsr_tpu.ops import filterbank as jfb
+pytest.importorskip("flax")  # dsr.models needs it; the core does not
+
+from dsr.config import FilterbankConfig
+from dsr.models import joint as mj
+from dsr.models.conformer import ctc_loss
+from dsr.ops import filterbank as jfb
 from tools.exp_joint_ctc import build_data
 
 STEPS = 250

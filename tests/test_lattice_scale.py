@@ -8,7 +8,7 @@ import time
 import numpy as np
 import pytest
 
-from dsr_tpu.asr.decoder import lattice as jlat
+from dsr.asr.decoder import lattice as jlat
 
 NEG = jlat.NEG
 
@@ -115,7 +115,7 @@ def test_oracle_and_consensus_at_lvcsr_scale():
     t_oracle = time.perf_counter() - t0
     assert 0 <= err <= len(ref) + lat.num_frames
     # 1-best edit distance is an upper bound on the lattice oracle
-    from dsr_tpu.utils.metrics import edit_distance
+    from dsr.utils.metrics import edit_distance
     hyp, _ = lat.one_best()
     s, d, i, _ = edit_distance(ref, hyp)
     assert err <= s + d + i

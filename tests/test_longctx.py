@@ -7,7 +7,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-from dsr_tpu.parallel import longctx
+from dsr.parallel import longctx
 
 MAXD = 16
 
@@ -47,10 +47,7 @@ def _run_sharded(fn, n, q, k, v, mask):
     )
     shmap = jax.shard_map(
         fn, mesh=mesh, in_specs=in_specs, out_specs=specs, check_vma=False,
-    ) if hasattr(jax, "shard_map") else None
-    if shmap is None:
-        from jax.experimental.shard_map import shard_map
-        shmap = shard_map(fn, mesh=mesh, in_specs=in_specs, out_specs=specs)
+    )
     return np.asarray(jax.jit(shmap)(*args))
 
 
@@ -107,7 +104,7 @@ def test_ring_matches_conformer_module_attention():
     """End-to-end: the flax RelPosSelfAttention output is reproduced by
     running its projections + ring attention over a time-sharded mesh."""
     import flax.linen as nn
-    from dsr_tpu.models.conformer import RelPosSelfAttention
+    from dsr.models.conformer import RelPosSelfAttention
 
     B, T, D, H = 2, 64, 16, 4
     mod = RelPosSelfAttention(D, heads=H, max_dist=MAXD)
@@ -137,7 +134,7 @@ def test_conformer_block_sequence_parallel_matches_dense():
     """A full ConformerBlock (attention + depthwise conv + FFNs) run
     time-sharded over 8 devices equals the dense single-device block —
     ring attention with global rel-pos bias plus conv halo exchange."""
-    from dsr_tpu.models.conformer import ConformerBlock
+    from dsr.models.conformer import ConformerBlock
 
     B, T, D, H, n = 2, 64, 16, 4, 8
     x = np.random.default_rng(6).standard_normal((B, T, D)).astype(np.float32)
@@ -159,7 +156,7 @@ def test_conformer_block_sequence_parallel_matches_dense():
 
 
 def test_exchange_halo_edges_zero():
-    from dsr_tpu.parallel.longctx import exchange_halo
+    from dsr.parallel.longctx import exchange_halo
     from jax.experimental.shard_map import shard_map
 
     n, Tl, halo = 4, 8, 3

@@ -6,14 +6,14 @@ decode equals single-device decode on a ≥10⁴-state graph (SURVEY.md
 import numpy as np
 import pytest
 
-from dsr_tpu.asr import lvcsr
-from dsr_tpu.asr.decoder import topk_decoder as tk
-from dsr_tpu.asr.decoder import wfst_decoder as wd
-from dsr_tpu.asr.fsm import hclg, lm, native
-from dsr_tpu.asr.fsm.packed import pack
-from dsr_tpu.config import MeshConfig
-from dsr_tpu.parallel import make_mesh
-from dsr_tpu.parallel.decoder import make_sharded_decode
+from dsr.asr import lvcsr
+from dsr.asr.decoder import topk_decoder as tk
+from dsr.asr.decoder import wfst_decoder as wd
+from dsr.asr.fsm import hclg, lm, native
+from dsr.asr.fsm.packed import pack
+from dsr.config import MeshConfig
+from dsr.parallel import make_mesh
+from dsr.parallel.decoder import make_sharded_decode
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native WFST core not built"
@@ -82,7 +82,7 @@ def test_lvcsr_sharded_decode_matches_single(task):
     rng = np.random.default_rng(7)
     lls = rng.standard_normal((U, T, task.num_pdfs)).astype(np.float32) * 2
     lens = np.asarray([T, T - 13], np.int32)
-    olabs_sh, scores_sh, spills_sh = run(lls, lens)
+    olabs_sh, scores_sh = run(lls, lens)
     for i in range(U):
         ol1, sc1 = tk.decode(tg, lls[i], kcap=kcap, beam=beam, length=int(lens[i]))
         assert abs(float(scores_sh[i]) - float(sc1)) < 1e-2
@@ -102,7 +102,7 @@ def test_lvcsr_sharded_beam_pruned_matches_single(task):
     rng = np.random.default_rng(11)
     lls = rng.standard_normal((U, T, task.num_pdfs)).astype(np.float32) * 2
     lens = np.asarray([T, T], np.int32)
-    olabs_sh, scores_sh, spills_sh = run(lls, lens)
+    olabs_sh, scores_sh = run(lls, lens)
     for i in range(U):
         ol1, sc1 = tk.decode(tg, lls[i], kcap=kcap, beam=beam)
         assert abs(float(scores_sh[i]) - float(sc1)) < 1e-2
@@ -120,8 +120,8 @@ def test_lvcsr_wer_zero_on_synthetic_am(task):
     pairs decode through the back-off arcs but can LEGITIMATELY lose to a
     homophone with better LM score — random pronunciations collide — so
     the exact gate uses in-domain text.)"""
-    from dsr_tpu.asr.am import gmm as jgmm
-    from dsr_tpu.utils.metrics import WerScorer
+    from dsr.asr.am import gmm as jgmm
+    from dsr.utils.metrics import WerScorer
     import jax.numpy as jnp
 
     cfg = task.cfg
@@ -147,7 +147,7 @@ def test_lvcsr_backoff_path_decodes_unseen_bigram(task):
     """Unseen word pairs remain REACHABLE through the LM back-off arcs:
     with an unambiguous second word the decoder must recover it even
     though the bigram never occurred in training."""
-    from dsr_tpu.asr.am import gmm as jgmm
+    from dsr.asr.am import gmm as jgmm
     import jax.numpy as jnp
 
     cfg = task.cfg
@@ -173,7 +173,7 @@ def test_lvcsr_backoff_path_decodes_unseen_bigram(task):
     # only get there through the back-off arcs
     out = tk.decode_with_tokens(tg, ll, kcap=512, beam=1e9, nlat=6)
     _, _, ts_, ta_, tsc_, aa, asc = out
-    from dsr_tpu.asr.decoder import lattice as jlat
+    from dsr.asr.decoder import lattice as jlat
 
     lat = jlat.from_topk(ts_, ta_, tsc_, tg, aa, asc)
     ref_ids = [task.words[w1], task.words[w2]]
@@ -188,7 +188,7 @@ def test_lvcsr_triphone_build_and_recognize():
     Structure gates: tying is real (far fewer tied pdfs than seen
     triphone states, but more than monophone states — the tree used the
     left-context questions)."""
-    from dsr_tpu.asr.am import gmm as jgmm
+    from dsr.asr.am import gmm as jgmm
     import jax.numpy as jnp
 
     cfg = lvcsr.LvcsrConfig(vocab_size=300, n_tokens=5000, branching=3)

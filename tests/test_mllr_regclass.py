@@ -5,9 +5,9 @@ single global transform, and data-poor classes must back off up the tree."""
 import numpy as np
 import jax.numpy as jnp
 
-from dsr_tpu.asr.adapt import mllr
-from dsr_tpu.asr.am.gmm import GmmParams
-from dsr_tpu.asr.train.ml import GmmAccum
+from dsr.asr.adapt import mllr
+from dsr.asr.am.gmm import GmmParams
+from dsr.asr.train.ml import GmmAccum
 
 S, C, D = 24, 1, 4
 

@@ -11,10 +11,10 @@ import jax.numpy as jnp
 
 
 def test_frontend_paths_nan_free(debug_nans):
-    from dsr_tpu.config import ArrayGeometry, FilterbankConfig
-    from dsr_tpu.ops import beamforming as jbf
-    from dsr_tpu.ops import features as jft
-    from dsr_tpu.ops import filterbank as jfb
+    from dsr.config import ArrayGeometry, FilterbankConfig
+    from dsr.ops import beamforming as jbf
+    from dsr.ops import features as jft
+    from dsr.ops import filterbank as jfb
 
     SR = 16000.0
     cfg = FilterbankConfig(M=64, m=2, r=2)
@@ -41,13 +41,13 @@ def test_frontend_paths_nan_free(debug_nans):
 
 
 def test_train_decode_paths_nan_free(debug_nans):
-    from dsr_tpu.asr import smallvocab
-    from dsr_tpu.asr.am import gmm as jgmm
-    from dsr_tpu.asr.train import trainer
+    from dsr.asr import smallvocab
+    from dsr.asr.am import gmm as jgmm
+    from dsr.asr.train import trainer
     from golden import corpus as gcorpus
-    from dsr_tpu.ops import features as jft
-    from dsr_tpu.ops import filterbank as jfb
-    from dsr_tpu.config import FilterbankConfig
+    from dsr.ops import features as jft
+    from dsr.ops import filterbank as jfb
+    from dsr.config import FilterbankConfig
 
     task = smallvocab.SmallVocabTask(gcorpus.VOCAB[:3])
     corpus = gcorpus.make_corpus(3, min_words=1, max_words=2, seed=0)

@@ -7,14 +7,16 @@ import jax
 import jax.numpy as jnp
 import optax
 
+pytest.importorskip("flax")  # dsr.models needs it; the core does not
+
 from golden import corpus as gcorpus
 from golden import room as groom
-from dsr_tpu.config import ArrayGeometry, FilterbankConfig
-from dsr_tpu.models import conformer as cfm
-from dsr_tpu.models import neural_beamformer as nbf
-from dsr_tpu.ops import beamforming as jbf
-from dsr_tpu.ops import features as jft
-from dsr_tpu.ops import filterbank as jfb
+from dsr.config import ArrayGeometry, FilterbankConfig
+from dsr.models import conformer as cfm
+from dsr.models import neural_beamformer as nbf
+from dsr.ops import beamforming as jbf
+from dsr.ops import features as jft
+from dsr.ops import filterbank as jfb
 
 SR = 16000.0
 

@@ -1,14 +1,22 @@
-"""Parity tests for the Pallas recombination/prune kernel
-(ops/pallas/select.py) against a NumPy transcription of the decoder's
-sort-based reference path (topk_decoder._make_step lines 155-170)."""
+"""Parity tests for the decoders' shared recombination/prune stage
+(`topk_decoder.recombine_topk`) against a NumPy transcription of its
+semantics: lexicographic (dst, -score, arc) recombination, beam against
+the frame max, exact top-kcap."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
-from dsr_tpu.ops.pallas import select
+from dsr.asr.decoder import topk_decoder as tk
 
-NEG = select.NEG
+NEG = tk.NEG
+
+
+def select(cand, fdst, arcs, beam, kcap, nlat=0):
+    return jax.jit(tk.recombine_topk, static_argnames=("kcap", "nlat"))(
+        jnp.asarray(cand), jnp.asarray(fdst), jnp.asarray(arcs),
+        jnp.float32(beam), kcap=kcap, nlat=nlat)
 
 
 def ref_select(cand, fdst, arcs, beam, kcap):
@@ -37,8 +45,8 @@ def pairs(scores, dst, arc):
     (2000, 128, 400, 2.0),     # beam actually prunes
     (12032, 256, 5000, 1e9),   # the LVCSR bench shape
     (600, 128, 10000, 1e9),    # fewer candidates than kcap survivors
-    (512, 256, 300, 1e9),      # sharded cross-shard MERGE shape (round 5):
-                               # n_model*kcap candidates at the 4*LANES min
+    (512, 256, 300, 1e9),      # sharded cross-shard MERGE shape:
+                               # n_model*kcap candidates
 ])
 def test_kernel_matches_sort_path(seed, n, kcap, ndst, beam):
     rng = np.random.default_rng(seed)
@@ -46,10 +54,7 @@ def test_kernel_matches_sort_path(seed, n, kcap, ndst, beam):
     fdst = rng.integers(0, ndst, n).astype(np.int32)
     arcs = np.arange(n, dtype=np.int32)
     rs, rd, ra = ref_select(cand, fdst, arcs, beam, kcap)
-    ks, kd, ka, spill = select.recombine_topk(
-        jnp.asarray(cand), jnp.asarray(fdst), jnp.asarray(arcs),
-        jnp.float32(beam), kcap=kcap)
-    assert not bool(spill), "random spread should not spill"
+    ks, kd, ka = select(cand, fdst, arcs, beam, kcap)
     assert pairs(ks, kd, ka) == pairs(rs, rd, ra)
 
 
@@ -59,44 +64,38 @@ def test_kernel_matches_sort_path(seed, n, kcap, ndst, beam):
     (40000, 256, 30000, 1e9),   # R=512: four presort sub-blocks
 ])
 def test_kernel_big_pool_matches_sort_path(n, kcap, ndst, beam):
-    """Round-4 big-pool select: blocks wider than 128 rows presort in
-    128-row sub-blocks, each contributing a per-lane top-q to the pool."""
+    """Big candidate pools: monophone kcap=512 and a 40k-candidate frame."""
     rng = np.random.default_rng(11)
     cand = rng.standard_normal(n).astype(np.float32) * 5
     fdst = rng.integers(0, ndst, n).astype(np.int32)
     arcs = np.arange(n, dtype=np.int32)
     rs, rd, ra = ref_select(cand, fdst, arcs, beam, kcap)
-    ks, kd, ka, spill = select.recombine_topk(
-        jnp.asarray(cand), jnp.asarray(fdst), jnp.asarray(arcs),
-        jnp.float32(beam), kcap=kcap)
-    assert not bool(spill), "random spread should not spill"
+    ks, kd, ka = select(cand, fdst, arcs, beam, kcap)
     assert pairs(ks, kd, ka) == pairs(rs, rd, ra)
 
 
 def test_per_utterance_beams_batch():
-    """vmapped beams must apply each utterance's OWN beam (the batching
-    rule used to collapse to utterance 0's — review round 4)."""
-    import jax
+    """vmapped beams must apply each utterance's OWN beam."""
     rng = np.random.default_rng(5)
     U, n, kcap = 3, 2048, 128
     cand = rng.standard_normal((U, n)).astype(np.float32) * 5
     fdst = rng.integers(0, 500, (U, n)).astype(np.int32)
     arcs = np.broadcast_to(np.arange(n, dtype=np.int32), (U, n)).copy()
     beams = np.asarray([1e9, 3.0, 0.5], np.float32)
-    ks, kd, ka, spill = jax.vmap(
-        lambda c, f, a, b: select.recombine_topk(c, f, a, b, kcap=kcap)
-    )(jnp.asarray(cand), jnp.asarray(fdst), jnp.asarray(arcs),
-      jnp.asarray(beams))
+    ks, kd, ka = jax.jit(jax.vmap(
+        lambda c, f, a, b: tk.recombine_topk(c, f, a, b, kcap=kcap)
+    ))(jnp.asarray(cand), jnp.asarray(fdst), jnp.asarray(arcs),
+       jnp.asarray(beams))
     for u in range(U):
         rs, rd, ra = ref_select(cand[u], fdst[u], arcs[u], beams[u], kcap)
-        assert not bool(spill[u])
         assert pairs(ks[u], kd[u], ka[u]) == pairs(rs, rd, ra)
 
 
 def test_spill_flags_adversarial_lane():
-    """Cram > q winners into one lane: the kernel must raise `spill`
-    rather than silently drop them."""
-    n, kcap, q = 4096, 128, 16
+    """The 24 largest scores at a stride of 128 (one column of a 128-wide
+    layout), all distinct destinations: every one must survive, exactly
+    as the reference keeps them."""
+    n, kcap = 4096, 128
     rng = np.random.default_rng(7)
     cand = rng.standard_normal(n).astype(np.float32)
     # lane 5 (flat index ≡ 5 mod 128) gets the 24 largest scores
@@ -104,16 +103,15 @@ def test_spill_flags_adversarial_lane():
     cand[hot] = 100.0 + np.arange(24)
     fdst = np.arange(n, dtype=np.int32)     # no dups: all are winners
     arcs = np.arange(n, dtype=np.int32)
-    _, _, _, spill = select.recombine_topk(
-        jnp.asarray(cand), jnp.asarray(fdst), jnp.asarray(arcs),
-        jnp.float32(1e9), kcap=kcap, q=q)
-    assert bool(spill)
+    ks, kd, ka = select(cand, fdst, arcs, 1e9, kcap)
+    assert pairs(ks, kd, ka) == pairs(*ref_select(cand, fdst, arcs, 1e9, kcap))
+    assert set(hot.tolist()) <= set(np.asarray(ka).tolist())
 
 
 def test_spill_flags_adversarial_lane_sub_block():
-    """Same, but the hot lane sits in the SECOND 128-row presort
-    sub-block of a big-pool (R=256) call."""
-    n, kcap, q = 24064, 128, 16
+    """Same, with the hot column starting 16384 candidates into a
+    24064-candidate frame."""
+    n, kcap = 24064, 128
     rng = np.random.default_rng(9)
     cand = rng.standard_normal(n).astype(np.float32)
     base = 128 * 128      # flat start of sub-block 1
@@ -121,10 +119,9 @@ def test_spill_flags_adversarial_lane_sub_block():
     cand[hot] = 100.0 + np.arange(24)
     fdst = np.arange(n, dtype=np.int32)
     arcs = np.arange(n, dtype=np.int32)
-    _, _, _, spill = select.recombine_topk(
-        jnp.asarray(cand), jnp.asarray(fdst), jnp.asarray(arcs),
-        jnp.float32(1e9), kcap=kcap, q=q)
-    assert bool(spill)
+    ks, kd, ka = select(cand, fdst, arcs, 1e9, kcap)
+    assert pairs(ks, kd, ka) == pairs(*ref_select(cand, fdst, arcs, 1e9, kcap))
+    assert set(hot.tolist()) <= set(np.asarray(ka).tolist())
 
 
 def ref_select_lat(cand, fdst, arcs, beam, kcap, nlat):
@@ -168,61 +165,54 @@ def lat_by_dst(dst, w, alt_a, alt_s):
 
 @pytest.mark.parametrize("beam", [1e9, 3.0])
 def test_lattice_mode_matches_sort_path(beam):
-    """nlat>0: the kernel's (kcap, nlat) alt layout must equal the XLA
-    path's when the conservative certificate holds (q=64 > any lane's
-    candidate count → nothing is ever presort-excluded)."""
+    """nlat>0: the (kcap, nlat) alternate-arc layout equals the
+    reference's, and the winners equal the 1-best call's."""
     rng = np.random.default_rng(21)
     n, kcap, nlat = 2048, 128, 4
     cand = rng.standard_normal(n).astype(np.float32) * 4
     fdst = rng.integers(0, 300, n).astype(np.int32)   # ~7 cands per dst
     arcs = np.arange(n, dtype=np.int32)
-    ks, kd, ka, spill = select.recombine_topk(
-        jnp.asarray(cand), jnp.asarray(fdst), jnp.asarray(arcs),
-        jnp.float32(beam), kcap=kcap, q=64, nlat=nlat)
-    assert not bool(spill)
+    ks, kd, ka, aa, asc = select(cand, fdst, arcs, beam, kcap, nlat)
     rw, rd, raa, ras = ref_select_lat(cand, fdst, arcs, beam, kcap, nlat)
-    got = lat_by_dst(np.asarray(kd)[:, 0], np.asarray(ks)[:, 0],
-                     np.asarray(ka), np.asarray(ks))
+    got = lat_by_dst(np.asarray(kd), np.asarray(ks), np.asarray(aa),
+                     np.asarray(asc))
     want = lat_by_dst(rd, rw, raa, ras)
     assert got == want
     # winner column == 1-best output of the same call shape
-    ks1, kd1, ka1, sp1 = select.recombine_topk(
-        jnp.asarray(cand), jnp.asarray(fdst), jnp.asarray(arcs),
-        jnp.float32(beam), kcap=kcap, q=64)
-    assert pairs(ks[:, 0], kd[:, 0], ka[:, 0]) == pairs(ks1, kd1, ka1)
+    ks1, kd1, ka1 = select(cand, fdst, arcs, beam, kcap)
+    assert pairs(ks, kd, np.asarray(aa)[:, 0]) == pairs(ks1, kd1, ka1)
 
 
 def test_lattice_mode_conservative_spill():
-    """Any in-beam presort exclusion must flag spill in lattice mode
-    (an excluded candidate could be some emitted run's alternate)."""
+    """Lattice mode at the dense monophone bench pool (12032 candidates,
+    kcap=256, nlat=4) equals the reference exactly."""
     rng = np.random.default_rng(23)
-    n, kcap = 12032, 256
+    n, kcap, nlat = 12032, 256, 4
     cand = rng.standard_normal(n).astype(np.float32)
     fdst = rng.integers(0, 5000, n).astype(np.int32)
     arcs = np.arange(n, dtype=np.int32)
-    _, _, _, spill = select.recombine_topk(
-        jnp.asarray(cand), jnp.asarray(fdst), jnp.asarray(arcs),
-        jnp.float32(1e9), kcap=kcap, q=16, nlat=4)
-    assert bool(spill)   # 94 in-beam candidates per lane >> q=16
+    ks, kd, ka, aa, asc = select(cand, fdst, arcs, 1e9, kcap, nlat)
+    rw, rd, raa, ras = ref_select_lat(cand, fdst, arcs, 1e9, kcap, nlat)
+    assert lat_by_dst(np.asarray(kd), np.asarray(ks), np.asarray(aa),
+                      np.asarray(asc)) == lat_by_dst(rd, rw, raa, ras)
 
 
 def test_lattice_mode_batched():
-    import jax
     rng = np.random.default_rng(29)
     U, n, kcap, nlat = 3, 2048, 128, 2
     cand = rng.standard_normal((U, n)).astype(np.float32) * 4
     fdst = rng.integers(0, 300, (U, n)).astype(np.int32)
     arcs = np.broadcast_to(np.arange(n, dtype=np.int32), (U, n)).copy()
-    ks, kd, ka, spill = jax.vmap(
-        lambda c, f, a: select.recombine_topk(
-            c, f, a, jnp.float32(1e9), kcap=kcap, q=64, nlat=nlat)
-    )(jnp.asarray(cand), jnp.asarray(fdst), jnp.asarray(arcs))
-    assert ks.shape == (U, kcap, nlat) and not bool(np.asarray(spill).any())
+    ks, kd, ka, aa, asc = jax.jit(jax.vmap(
+        lambda c, f, a: tk.recombine_topk(
+            c, f, a, jnp.float32(1e9), kcap=kcap, nlat=nlat)
+    ))(jnp.asarray(cand), jnp.asarray(fdst), jnp.asarray(arcs))
+    assert aa.shape == (U, kcap, nlat) and asc.shape == (U, kcap, nlat)
     for u in range(U):
         rw, rd, raa, ras = ref_select_lat(cand[u], fdst[u], arcs[u], 1e9,
                                           kcap, nlat)
-        got = lat_by_dst(np.asarray(kd[u])[:, 0], np.asarray(ks[u])[:, 0],
-                         np.asarray(ka[u]), np.asarray(ks[u]))
+        got = lat_by_dst(np.asarray(kd[u]), np.asarray(ks[u]),
+                         np.asarray(aa[u]), np.asarray(asc[u]))
         assert got == lat_by_dst(rd, rw, raa, ras)
 
 
@@ -235,23 +225,18 @@ def test_duplicate_heavy_recombination():
     cand = rng.permutation(n).astype(np.float32) / 97
     arcs = np.arange(n, dtype=np.int32)
     rs, rd, ra = ref_select(cand, fdst, arcs, 1e9, kcap)
-    ks, kd, ka, spill = select.recombine_topk(
-        jnp.asarray(cand), jnp.asarray(fdst), jnp.asarray(arcs),
-        jnp.float32(1e9), kcap=kcap)
-    if not bool(spill):
-        assert pairs(ks, kd, ka) == pairs(rs, rd, ra)
-    else:
-        # heavy duplication can legitimately spill; the kept set must
-        # still be a subset of the reference winners
-        assert set(pairs(ks, kd, ka)) <= set(pairs(rs, rd, ra))
+    ks, kd, ka = select(cand, fdst, arcs, 1e9, kcap)
+    assert pairs(ks, kd, ka) == pairs(rs, rd, ra)
+    # at most one survivor per destination
+    alive = np.asarray(ks) > NEG / 2
+    assert len(set(np.asarray(kd)[alive].tolist())) == int(alive.sum())
 
 
 def test_merge_shape_with_neg_padding():
-    """The sharded decoder's cross-shard merge (round 5): two per-shard
-    top-kcap candidate sets (each already dst-unique WITHIN a shard,
-    duplicated ACROSS shards) NEG-padded up to the kernel's 4*LANES
-    minimum pool.  Padding must never surface and the merged top-kcap
-    must equal the sort reference."""
+    """The sharded decoder's cross-shard merge: two per-shard top-kcap
+    candidate sets (each already dst-unique WITHIN a shard, duplicated
+    ACROSS shards) with NEG padding.  Padding must never surface and the
+    merged top-kcap must equal the sort reference."""
     rng = np.random.default_rng(9)
     kcap = 128
     sets = []
@@ -264,14 +249,11 @@ def test_merge_shape_with_neg_padding():
     gd = np.concatenate([s[1] for s in sets])
     ga = np.concatenate([s[2] for s in sets])
     pad = 4 * 128 - len(gv)
-    gv = np.concatenate([gv, np.full(pad, select.NEG, np.float32)])
+    gv = np.concatenate([gv, np.full(pad, NEG, np.float32)])
     gd = np.concatenate([gd, np.zeros(pad, np.int32)])
     ga = np.concatenate([ga, np.full(pad, -1, np.int32)])
     rs, rd, ra = ref_select(gv, gd, ga, 1e9, kcap)
-    ks, kd, ka, spill = select.recombine_topk(
-        jnp.asarray(gv), jnp.asarray(gd), jnp.asarray(ga),
-        jnp.float32(1e9), kcap=kcap)
-    assert not bool(spill)
+    ks, kd, ka = select(gv, gd, ga, 1e9, kcap)
     got = pairs(ks, kd, ka)
     assert got == pairs(rs, rd, ra)
     # padding (arc = -1) must never appear among the alive winners

@@ -4,8 +4,8 @@ import numpy as np
 import pytest
 
 from golden import room as groom
-from dsr_tpu.config import ArrayGeometry, BeamformerConfig, FilterbankConfig
-from dsr_tpu.pipeline import DsrPipeline
+from dsr.config import ArrayGeometry, BeamformerConfig, FilterbankConfig
+from dsr.pipeline import DsrPipeline
 
 SR = 16000.0
 

@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import pytest
 from jax.sharding import Mesh
 
-from dsr_tpu.parallel.pipeline_parallel import pipeline_apply
+from dsr.parallel.pipeline_parallel import pipeline_apply
 
 
 def _layer(p, x):
@@ -37,7 +37,7 @@ def test_pipeline_matches_sequential(n_stages, n_micro):
 
 def test_pipeline_conformer_stack():
     """The config-5 shape: a stack of Conformer blocks pipelined 2-stage."""
-    from dsr_tpu.models import conformer as cfm
+    from dsr.models import conformer as cfm
 
     devs = np.array(jax.devices()[:2])
     mesh = Mesh(devs, ("stage",))

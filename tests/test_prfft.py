@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 
 from golden import prfft as gp
-from dsr_tpu.ops import prfft as jp
+from dsr.ops import prfft as jp
 
 
 @pytest.mark.parametrize("M,D", [(256, 128), (256, 64), (512, 256), (64, 64)])

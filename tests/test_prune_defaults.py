@@ -3,16 +3,16 @@
 
 On a noisy (well-calibrated) synthetic corpus through the 43k-state
 trigram HCLG: kcap=256 must sit within 1% absolute WER of kcap=512, the
-beam default must not be the binding constraint, and the Pallas select
-paths (q=16 and q=8) must match the exact sort path's WER at the default
+beam default must not be the binding constraint, and the degree-split
+production decoder must match the dense decoder's WER at the default
 operating point."""
 
 import numpy as np
 import pytest
 
-from dsr_tpu.asr import lvcsr
-from dsr_tpu.asr.decoder import topk_decoder as tk
-from dsr_tpu.asr.fsm import native
+from dsr.asr import lvcsr
+from dsr.asr.decoder import topk_decoder as tk
+from dsr.asr.fsm import native
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native WFST core not built"
@@ -24,7 +24,7 @@ NOISE = 2.2
 @pytest.fixture(scope="module")
 def setup():
     import jax.numpy as jnp
-    from dsr_tpu.asr.am import gmm as jgmm
+    from dsr.asr.am import gmm as jgmm
 
     cfg = lvcsr.LvcsrConfig(vocab_size=300, n_tokens=5000, branching=3)
     task = lvcsr.build_task(cfg)
@@ -48,7 +48,7 @@ def setup():
 
 
 def wer(task, sents, olabs, lens):
-    from dsr_tpu.utils.metrics import WerScorer
+    from dsr.utils.metrics import WerScorer
 
     sc = WerScorer()
     for i, s in enumerate(sents):
@@ -60,36 +60,32 @@ def wer(task, sents, olabs, lens):
 
 def test_kcap_256_matches_512(setup):
     task, tg, sents, ll, lens = setup
-    o256, _ = tk.decode_batch(tg, ll, lens, kcap=256, beam=60.0,
-                              select_mode="xla")
-    o512, _ = tk.decode_batch(tg, ll, lens, kcap=512, beam=60.0,
-                              select_mode="xla")
+    o256, _ = tk.decode_batch(tg, ll, lens, kcap=256, beam=60.0)
+    o512, _ = tk.decode_batch(tg, ll, lens, kcap=512, beam=60.0)
     w256, w512 = wer(task, sents, o256, lens), wer(task, sents, o512, lens)
     assert w256 <= w512 + 0.01, (w256, w512)
 
 
 def test_beam_default_not_binding(setup):
     task, tg, sents, ll, lens = setup
-    o60, _ = tk.decode_batch(tg, ll, lens, kcap=256, beam=60.0,
-                             select_mode="xla")
-    oinf, _ = tk.decode_batch(tg, ll, lens, kcap=256, beam=1e9,
-                              select_mode="xla")
+    o60, _ = tk.decode_batch(tg, ll, lens, kcap=256, beam=60.0)
+    oinf, _ = tk.decode_batch(tg, ll, lens, kcap=256, beam=1e9)
     assert wer(task, sents, o60, lens) <= wer(task, sents, oinf, lens) + 0.01
 
 
 def test_pallas_select_wer_neutral(setup):
-    # q=16 only here (q=8 is covered on-chip by tools/exp_wer_prune.py and
-    # bench.py: the interpret-mode kernel is the suite's cost ceiling)
+    """The degree-split decoder (the bench's a0=2 / eg=896 layout) decodes
+    the same words as the dense decoder at kcap=256, beam=60, with no
+    overflow frames."""
+    from dsr.asr.decoder import split_decoder as sd
+
     task, tg, sents, ll, lens = setup
-    ox, _ = tk.decode_batch(tg, ll, lens, kcap=256, beam=60.0,
-                            select_mode="xla")
-    wx = wer(task, sents, ox, lens)
-    for q in (16,):
-        op, _, spill = tk.decode_batch(tg, ll, lens, kcap=256, beam=60.0,
-                                       select_mode="pallas", select_q=q,
-                                       return_spill=True)
-        wp = wer(task, sents, op, lens)
-        assert abs(wp - wx) <= 0.01, (q, wp, wx)
-        # the certificate explains any divergence
-        if wp != wx:
-            assert int(np.asarray(spill).sum()) > 0
+    od, _ = tk.decode_batch(tg, ll, lens, kcap=256, beam=60.0)
+    sg = sd.build_split_graph(task.graph, a0=2)
+    osp, _, ovf = sd.decode_batch_split(sg, ll, lens, kcap=256, beam=60.0,
+                                        eg=896)
+    assert int(np.asarray(ovf).sum()) == 0
+    for i in range(len(sents)):
+        assert ([int(w) for w in np.asarray(osp[i][: lens[i]]) if w]
+                == [int(w) for w in np.asarray(od[i][: lens[i]]) if w])
+    assert wer(task, sents, osp, lens) == wer(task, sents, od, lens)

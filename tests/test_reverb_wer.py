@@ -19,15 +19,15 @@ import pytest
 
 from golden import corpus as gcorpus
 from golden import room as groom
-from dsr_tpu.asr import smallvocab
-from dsr_tpu.asr.train import trainer
-from dsr_tpu.config import ArrayGeometry, FilterbankConfig
-from dsr_tpu.ops import beamforming as jbf
-from dsr_tpu.ops import dereverb as jdr
-from dsr_tpu.ops import features as jft
-from dsr_tpu.ops import filterbank as jfb
-from dsr_tpu.utils import objective as obj
-from dsr_tpu.utils.metrics import WerScorer
+from dsr.asr import smallvocab
+from dsr.asr.train import trainer
+from dsr.config import ArrayGeometry, FilterbankConfig
+from dsr.ops import beamforming as jbf
+from dsr.ops import dereverb as jdr
+from dsr.ops import features as jft
+from dsr.ops import filterbank as jfb
+from dsr.utils import objective as obj
+from dsr.utils.metrics import WerScorer
 
 SR = 16000.0
 ROOM = np.array([5.0, 4.0, 3.0])

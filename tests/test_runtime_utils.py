@@ -5,10 +5,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from dsr_tpu.asr.am.gmm import GmmParams
-from dsr_tpu.utils import checkpoint as ckpt
-from dsr_tpu.utils import profiling
-from dsr_tpu.utils import workqueue
+from dsr.asr.am.gmm import GmmParams
+from dsr.utils import checkpoint as ckpt
+from dsr.utils import profiling
+from dsr.utils import workqueue
 
 
 def test_checkpoint_roundtrip(tmp_path):
@@ -52,3 +52,45 @@ def test_profiling_scope_smoke():
     with profiling.scope("stage"):
         x = jnp.sum(jnp.ones(8))
     assert float(x) == 8.0
+
+
+def test_op_layers_maps_instructions_to_innermost_scope():
+    hlo = (
+        '  %fusion.3 = f32[8]{0} fusion(%p), kind=kLoop, metadata={op_name='
+        '"jit(f)/while/body/arc_gather/recombine_topk/sort"}\n'
+        '  ROOT %copy.2 = f32[8]{0} copy(%fusion.3), metadata={op_name='
+        '"jit(f)/traceback/copy"}\n'
+        '  %add.1 = f32[8]{0} add(%a, %b), metadata={op_name="jit(f)/add"}\n')
+    assert profiling.op_layers(hlo) == {"fusion_3": "recombine_topk",
+                                        "copy_2": "traceback"}
+
+
+def test_layer_times_from_a_recorded_trace(tmp_path):
+    """A decode traced on the host attributes its ops to the decoder's
+    layer scopes, and the layers plus "other" add up to the total."""
+    import jax
+    import jax.numpy as jnp
+    from dsr.asr.decoder import topk_decoder as tk
+    from dsr.asr.fsm.packed import PackedGraph
+
+    rng = np.random.default_rng(0)
+    S, A, P = 64, 4, 6
+    g = PackedGraph(np.repeat(np.arange(S, dtype=np.int32), A),
+                    rng.integers(0, P, S * A).astype(np.int32),
+                    rng.integers(0, 3, S * A).astype(np.int32),
+                    rng.random(S * A).astype(np.float32),
+                    rng.integers(0, S, S * A).astype(np.int32), 0,
+                    np.zeros(S, np.float32), S)
+    tg = tk.build_token_graph(g)
+    args = (jnp.asarray(rng.standard_normal((20, P)).astype(np.float32)),
+            jnp.int32(20), tg.pdf, tg.olabel, tg.weight, tg.dst, tg.start,
+            tg.final_weight)
+    kw = dict(a_max=tg.a_max, kcap=32, beam=1e9)
+    text = tk._decode_impl.lower(*args, **kw).compile().as_text()
+    jax.block_until_ready(tk._decode_impl(*args, **kw))
+    with profiling.trace(str(tmp_path)):
+        jax.block_until_ready(tk._decode_impl(*args, **kw))
+    t = profiling.layer_times(str(tmp_path), {"decode": text})
+    assert t["recombine_topk"] > 0 and t["total"] > 0
+    parts = sum(v for k, v in t.items() if k != "total")
+    assert abs(parts - t["total"]) < 1e-9

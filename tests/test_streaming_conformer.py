@@ -8,7 +8,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from dsr_tpu.models.streaming_conformer import (StreamingConformerCtc,
+pytest.importorskip("flax")  # dsr.models needs it; the core does not
+
+from dsr.models.streaming_conformer import (StreamingConformerCtc,
                                                 greedy_ctc_stream)
 
 
@@ -91,10 +93,10 @@ def test_streaming_ctc_recognizer_matches_offline():
     transcript equals the offline chunk-causal greedy decode on the same
     features (the CTC analogue of StreamingRecognizer's WFST gate)."""
     from golden import room as groom
-    from dsr_tpu.config import (ArrayGeometry, BeamformerConfig,
+    from dsr.config import (ArrayGeometry, BeamformerConfig,
                                 FilterbankConfig)
-    from dsr_tpu.ops import features as jft
-    from dsr_tpu.pipeline import DsrPipeline, StreamingCtcRecognizer
+    from dsr.ops import features as jft
+    from dsr.pipeline import DsrPipeline, StreamingCtcRecognizer
 
     SR = 16000.0
     rng = np.random.default_rng(7)
@@ -128,8 +130,8 @@ def test_streaming_ctc_recognizer_matches_offline():
     # consumed: offline beamformed subbands (process_streaming_subbands
     # is frame-exact vs offline) through the recognizer's causal
     # feature path (fixed cep mean, NOT utterance CMN)
-    from dsr_tpu.ops import filterbank as jfb
-    from dsr_tpu.ops import beamforming as jbf  # noqa: F401 (pipe internals)
+    from dsr.ops import filterbank as jfb
+    from dsr.ops import beamforming as jbf  # noqa: F401 (pipe internals)
     A = jfb.analysis(jnp.asarray(xm), pipe.fb)
     Y, _ = pipe.beamform_subbands(A, pos)
     feats = rec._feats(Y)

@@ -8,9 +8,9 @@ import pytest
 from golden import room as groom
 from golden import tde as gtde
 from golden import tracking as gtrack
-from dsr_tpu.config import ArrayGeometry
-from dsr_tpu.ops import tde as jtde
-from dsr_tpu.ops import tracking as jtrack
+from dsr.config import ArrayGeometry
+from dsr.ops import tde as jtde
+from dsr.ops import tracking as jtrack
 
 SR = 16000.0
 GEOM = ArrayGeometry.circular(8, 0.15)

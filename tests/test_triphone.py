@@ -7,15 +7,15 @@ import pytest
 import jax.numpy as jnp
 
 from golden import corpus as gcorpus
-from dsr_tpu.asr import path as apath
-from dsr_tpu.asr import phone_task, tree as ptree, triphone
-from dsr_tpu.asr.am import gmm as jgmm
-from dsr_tpu.asr.decoder import wfst_decoder as wd
-from dsr_tpu.asr.fsm import hclg, lm
-from dsr_tpu.asr.fsm.packed import pack
-from dsr_tpu.asr.train import ml, trainer
-from dsr_tpu.ops import features as jft
-from dsr_tpu.utils.metrics import WerScorer
+from dsr.asr import path as apath
+from dsr.asr import phone_task, tree as ptree, triphone
+from dsr.asr.am import gmm as jgmm
+from dsr.asr.decoder import wfst_decoder as wd
+from dsr.asr.fsm import hclg, lm
+from dsr.asr.fsm.packed import pack
+from dsr.asr.train import ml, trainer
+from dsr.ops import features as jft
+from dsr.utils.metrics import WerScorer
 
 SR = 16000.0
 

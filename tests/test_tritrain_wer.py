@@ -19,18 +19,18 @@ import jax.numpy as jnp
 
 from golden import corpus as gcorpus
 from golden import room as groom
-from dsr_tpu.asr import phone_task, triphone, tritrain
-from dsr_tpu.asr.am import gmm as jgmm
-from dsr_tpu.asr.decoder import topk_decoder as tk
-from dsr_tpu.asr.fsm import hclg, lm, native
-from dsr_tpu.asr.fsm.hclg import SymbolTable
-from dsr_tpu.asr.fsm.packed import pack
-from dsr_tpu.asr.train import trainer
-from dsr_tpu.config import ArrayGeometry, FilterbankConfig
-from dsr_tpu.ops import beamforming as jbf
-from dsr_tpu.ops import features as jft
-from dsr_tpu.ops import filterbank as jfb
-from dsr_tpu.utils.metrics import WerScorer
+from dsr.asr import phone_task, triphone, tritrain
+from dsr.asr.am import gmm as jgmm
+from dsr.asr.decoder import topk_decoder as tk
+from dsr.asr.fsm import hclg, lm, native
+from dsr.asr.fsm.hclg import SymbolTable
+from dsr.asr.fsm.packed import pack
+from dsr.asr.train import trainer
+from dsr.config import ArrayGeometry, FilterbankConfig
+from dsr.ops import beamforming as jbf
+from dsr.ops import features as jft
+from dsr.ops import filterbank as jfb
+from dsr.utils.metrics import WerScorer
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native WFST core not built"

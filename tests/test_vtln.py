@@ -7,10 +7,10 @@ import numpy as np
 import pytest
 
 from golden import corpus as gcorpus
-from dsr_tpu.asr import phone_task
-from dsr_tpu.asr.adapt import vtln
-from dsr_tpu.asr.train import trainer
-from dsr_tpu.ops import features as jft
+from dsr.asr import phone_task
+from dsr.asr.adapt import vtln
+from dsr.asr.train import trainer
+from dsr.ops import features as jft
 
 SR = 16000.0
 WARPS = (0.85, 0.9, 0.95, 1.0, 1.05, 1.1, 1.15)

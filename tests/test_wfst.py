@@ -7,8 +7,8 @@ import random
 import numpy as np
 import pytest
 
-from dsr_tpu.asr.fsm import EPS, Wfst
-from dsr_tpu.asr.fsm import hclg, lm
+from dsr.asr.fsm import EPS, Wfst
+from dsr.asr.fsm import hclg, lm
 
 INF = float("inf")
 
@@ -160,7 +160,7 @@ def test_lexicon_disambig_and_determinizable():
 
 
 def test_hclg_composes_and_packs():
-    from dsr_tpu.asr.fsm.packed import pack
+    from dsr.asr.fsm.packed import pack
 
     phones = hclg.SymbolTable(["sil", "aa", "sh", "iy", "ss", "tt"])
     words = hclg.SymbolTable(["ash", "east"])

@@ -1,19 +1,19 @@
 """End-to-end HCLG decode gate (BASELINE.json config-4 path at small scale):
-phone GMM-HMM training → HCLG (bigram LM) → dense TPU WFST decode → WER,
+phone GMM-HMM training → HCLG (bigram LM) → dense batched WFST decode → WER,
 with a NumPy golden replica of the decoder for exact parity."""
 
 import numpy as np
 import pytest
 
 from golden import corpus as gcorpus
-from dsr_tpu.asr import phone_task
-from dsr_tpu.asr.am import gmm as jgmm
-from dsr_tpu.asr.decoder import wfst_decoder as wd
-from dsr_tpu.asr.fsm import hclg, lm
-from dsr_tpu.asr.fsm.packed import pack
-from dsr_tpu.asr.train import trainer
-from dsr_tpu.ops import features as jft
-from dsr_tpu.utils.metrics import WerScorer
+from dsr.asr import phone_task
+from dsr.asr.am import gmm as jgmm
+from dsr.asr.decoder import wfst_decoder as wd
+from dsr.asr.fsm import hclg, lm
+from dsr.asr.fsm.packed import pack
+from dsr.asr.train import trainer
+from dsr.ops import features as jft
+from dsr.utils.metrics import WerScorer
 
 SR = 16000.0
 

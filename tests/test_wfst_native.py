@@ -8,8 +8,8 @@ counts and on path weights.  Runs only if libdsrnative.so is built.
 import numpy as np
 import pytest
 
-from dsr_tpu.asr.fsm import native
-from dsr_tpu.asr.fsm.wfst import EPS, INF, Wfst
+from dsr.asr.fsm import native
+from dsr.asr.fsm.wfst import EPS, INF, Wfst
 
 pytestmark = pytest.mark.skipif(not native.available(), reason="native lib not built")
 
@@ -106,8 +106,8 @@ def test_determinize_divergence_guard():
 def test_hclg_pipeline_native_equals_python():
     """Full H∘(L∘G) build with native on vs off must yield graphs with the
     same accepted-path weights (end-to-end dispatch check)."""
-    from dsr_tpu.asr.fsm import hclg as _hclg
-    from dsr_tpu.asr.phone_task import PhoneTask
+    from dsr.asr.fsm import hclg as _hclg
+    from dsr.asr.phone_task import PhoneTask
     from golden import corpus as gcorpus
 
     rng = np.random.default_rng(3)

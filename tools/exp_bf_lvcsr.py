@@ -10,7 +10,7 @@ with a bigram LM over the full vocabulary, so the decoder must pick the
 spoken words out of an LVCSR-scale search space from BEAMFORMED audio.
 WER(single mic) vs WER(MVDR) vs WER(GSC) at the full graph.
 
-Run: /opt/venv/bin/python tools/exp_bf_lvcsr.py        (CPU ok)
+Run: python tools/exp_bf_lvcsr.py        (CPU ok)
 Optional: NDIST=600 E_UTTS=12
 """
 
@@ -38,9 +38,9 @@ def build_big_graph(seed=0):
     the word SymbolTable (pdf ids match PhoneTask's GMM numbering)."""
     from golden.corpus import PHONES, WORDS
     from golden import corpus as gcorpus
-    from dsr_tpu.asr.fsm import hclg, lm
-    from dsr_tpu.asr.fsm.hclg import SymbolTable
-    from dsr_tpu.asr.fsm.packed import pack
+    from dsr.asr.fsm import hclg, lm
+    from dsr.asr.fsm.hclg import SymbolTable
+    from dsr.asr.fsm.packed import pack
 
     rng = np.random.default_rng(seed)
     plist = sorted(PHONES)
@@ -67,21 +67,21 @@ def build_big_graph(seed=0):
 
 def main():
     import jax
-    if os.environ.get("BF_TPU") != "1":
+    if os.environ.get("BF_FULL") != "1":
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
     from golden import corpus as gcorpus
     from golden import room as groom
-    from dsr_tpu.asr import phone_task
-    from dsr_tpu.asr.am import gmm as jgmm
-    from dsr_tpu.asr.decoder import topk_decoder as tk
-    from dsr_tpu.asr.train import trainer
-    from dsr_tpu.config import ArrayGeometry, FilterbankConfig
-    from dsr_tpu.ops import beamforming as jbf
-    from dsr_tpu.ops import features as jft
-    from dsr_tpu.ops import filterbank as jfb
-    from dsr_tpu.utils.metrics import WerScorer
+    from dsr.asr import phone_task
+    from dsr.asr.am import gmm as jgmm
+    from dsr.asr.decoder import topk_decoder as tk
+    from dsr.asr.train import trainer
+    from dsr.config import ArrayGeometry, FilterbankConfig
+    from dsr.ops import beamforming as jbf
+    from dsr.ops import features as jft
+    from dsr.ops import filterbank as jfb
+    from dsr.utils.metrics import WerScorer
 
     def feats_of(x):
         return np.asarray(jft.cmn(jft.mfcc(np.asarray(x, np.float32), SR)))

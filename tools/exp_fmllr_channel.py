@@ -18,7 +18,7 @@ trained system (exp_tri_train.py) remains the production recipe; this
 experiment shows the adaptation subsystem recovering a MISMATCHED system
 the way the reference's workflow would.
 
-Run: /opt/venv/bin/python tools/exp_fmllr_channel.py        (CPU ok)
+Run: python tools/exp_fmllr_channel.py        (CPU ok)
 Optional: NDIST=300 E_UTTS=12 A_UTTS=8 TRAIN_UTTS=60
 """
 
@@ -49,19 +49,19 @@ def main():
 
     from golden import corpus as gcorpus
     from golden import room as groom
-    from dsr_tpu.asr import phone_task, triphone, tritrain
-    from dsr_tpu.asr import path as apath
-    from dsr_tpu.asr.adapt import fmllr
-    from dsr_tpu.asr.am import gmm as jgmm
-    from dsr_tpu.asr.decoder import topk_decoder as tk
-    from dsr_tpu.asr.fsm import lm
-    from dsr_tpu.asr.fsm.hclg import SymbolTable
-    from dsr_tpu.asr.train import trainer
-    from dsr_tpu.config import ArrayGeometry, FilterbankConfig
-    from dsr_tpu.ops import beamforming as jbf
-    from dsr_tpu.ops import features as jft
-    from dsr_tpu.ops import filterbank as jfb
-    from dsr_tpu.utils.metrics import WerScorer
+    from dsr.asr import phone_task, triphone, tritrain
+    from dsr.asr import path as apath
+    from dsr.asr.adapt import fmllr
+    from dsr.asr.am import gmm as jgmm
+    from dsr.asr.decoder import topk_decoder as tk
+    from dsr.asr.fsm import lm
+    from dsr.asr.fsm.hclg import SymbolTable
+    from dsr.asr.train import trainer
+    from dsr.config import ArrayGeometry, FilterbankConfig
+    from dsr.ops import beamforming as jbf
+    from dsr.ops import features as jft
+    from dsr.ops import filterbank as jfb
+    from dsr.utils.metrics import WerScorer
 
     def feats_of(x):
         return np.asarray(jft.cmn(jft.mfcc(np.asarray(x, np.float32), SR)))

@@ -9,7 +9,7 @@ denominator statistics collected under the eval condition) → EBW
 the bigram decode HCLG, asr/train/mmi.ebw_train) → decode noisy eval
 audio with the ML vs the MMI AM on the same graph.
 
-Run: /opt/venv/bin/python tools/exp_mmi.py        (CPU ok)
+Run: python tools/exp_mmi.py        (CPU ok)
 Optional: NOISE=0.12 TRAIN_NOISE=0.12 E_UTTS=24 ITERS=4 ECONST=2.0
 """
 
@@ -34,14 +34,14 @@ def main():
     import jax.numpy as jnp
 
     from golden import corpus as gcorpus
-    from dsr_tpu.asr import phone_task
-    from dsr_tpu.asr.am import gmm as jgmm
-    from dsr_tpu.asr.decoder import wfst_decoder as wd
-    from dsr_tpu.asr.fsm import hclg, lm
-    from dsr_tpu.asr.fsm.packed import pack
-    from dsr_tpu.asr.train import mmi, trainer
-    from dsr_tpu.ops import features as jft
-    from dsr_tpu.utils.metrics import WerScorer
+    from dsr.asr import phone_task
+    from dsr.asr.am import gmm as jgmm
+    from dsr.asr.decoder import wfst_decoder as wd
+    from dsr.asr.fsm import hclg, lm
+    from dsr.asr.fsm.packed import pack
+    from dsr.asr.train import mmi, trainer
+    from dsr.ops import features as jft
+    from dsr.utils.metrics import WerScorer
 
     SR = 16000.0
 

@@ -1,22 +1,14 @@
-"""Tied-triphone LVCSR decode study (round-4 VERDICT items 1+2).
+"""Tied-triphone LVCSR decode study: WER and throughput of the dense
+token table against the degree-split layouts.
 
-The triphone HCLG is the realistic context-dependent decode config and the
-round-3 weak spot: a_max=263 against a MEAN out-degree of 3.9 means the
-dense token table is ~98.5% padding — 67k/135k scored candidates per frame
-at kcap=256/512 — and the select kernel's old 16384-candidate gate forced
-kcap=512 onto the XLA sorts (10 audio-s/s).  This experiment measures the
-two round-4 fixes on-chip, with WER:
+The triphone HCLG is the realistic context-dependent decode config:
+a_max=263 against a MEAN out-degree of 3.9 means the dense token table is
+~98.5% padding — 67k/135k scored candidates per frame at kcap=256/512.
+The degree-split decoder's pool is (kcap+EG)*a0 instead; this study sweeps
+a0 ∈ {8, 4, 2} with the overflow budget EG sized to each, reporting WER,
+overflow frames and audio-s/s on the device it runs on.
 
-  - big-pool select: the sub-block presort lifts the gate, so dense
-    kcap=512 (135k candidates, R=2048 rows) runs through the kernel;
-  - the degree-split decoder (8-arc main table + certified overflow
-    groups): its candidate pool is (kcap+EG)*8 — 16x smaller than the
-    dense table's kcap*263 — and on this graph the frame loop is
-    array-size-bound, not op-overhead-bound (the monophone NEUTRAL
-    measurement in KERNELS.md does not transfer).
-
-Run on TPU: /opt/venv/bin/python tools/exp_tri_decode.py
-Optional: NOISE=2.2 E_UTTS=24
+Run: python tools/exp_tri_decode.py          Optional: NOISE=2.2 E_UTTS=24
 """
 
 import os
@@ -33,18 +25,18 @@ SEED = 17
 
 
 def main():
+    import jax
     import jax.numpy as jnp
 
-    from dsr_tpu.asr import lvcsr
-    from dsr_tpu.asr.am import gmm as jgmm
-    from dsr_tpu.asr.decoder import split_decoder as sd
-    from dsr_tpu.asr.decoder import topk_decoder as tk
-    from dsr_tpu.utils.metrics import WerScorer
+    from dsr.asr import lvcsr
+    from dsr.asr.am import gmm as jgmm
+    from dsr.asr.decoder import split_decoder as sd
+    from dsr.asr.decoder import topk_decoder as tk
+    from dsr.utils.metrics import WerScorer
     from tools.exp_wer_prune import make_sentences, pad_feats, wer_of
 
     task = lvcsr.build_task_tri()
     tg = tk.build_token_graph(task.graph)
-    sg = sd.build_split_graph(task.graph)
     params = lvcsr.synthetic_am_tri(task, var=NOISE ** 2)
     rng = np.random.default_rng(SEED + 1)
     import tools.exp_wer_prune as ewp
@@ -57,13 +49,11 @@ def main():
     ll = jnp.reshape(ll, batch.shape[:2] + (-1,))
     lens_j = jnp.asarray(lens)
     audio = float(lens.sum()) / 125.0
-    # RECONCILIATION (round-4 VERDICT weak #4): this driver divides by
-    # REAL audio seconds, but the fixed-shape scan decodes every PADDED
-    # frame of the variable-length batch — so its audio-s/s is the
-    # bench.py number x (real frames / padded frames).  bench.py (all
-    # utterances full-length, zero padding) is the canonical per-chip
-    # throughput claim; this driver's numbers carry the padding tax of
-    # its particular utterance-length mix and exist for the WER columns.
+    # this script divides by REAL audio seconds, but the fixed-shape scan
+    # decodes every PADDED frame of the variable-length batch — so its
+    # audio-s/s is the bench.py number x (real frames / padded frames).
+    # bench.py (all utterances full-length, zero padding) is the canonical
+    # throughput; this script's numbers exist for the WER columns.
     pad_frames = int(np.prod(batch.shape[:2]))
     print(f"padding: {lens.sum()}/{pad_frames} real frames "
           f"({100.0 * float(lens.sum()) / pad_frames:.1f}%) — "
@@ -78,13 +68,10 @@ def main():
     rows = []
 
     def timeit(fn):
-        out = fn()
-        float(np.asarray(out[1]).sum())          # warmup/compile readback
+        jax.block_until_ready(fn())              # warmup / compile
         t0 = time.perf_counter()
-        out = fn()
-        float(np.asarray(out[1]).sum())
-        dt = time.perf_counter() - t0
-        return out, dt
+        out = jax.block_until_ready(fn())
+        return out, time.perf_counter() - t0
 
     def record(name, kcap, olabs, dt, extra=""):
         w = wer_of(task, sents, np.asarray(olabs), lens, WerScorer)
@@ -94,31 +81,16 @@ def main():
 
     for kcap in (256, 512):
         (olabs, sc), dt = timeit(lambda: tk.decode_batch(
-            tg, ll, lens_j, kcap=kcap, beam=60.0, select_mode="xla"))
-        record("dense xla", kcap, olabs, dt)
-    for kcap in (256, 512):
-        (olabs, sc, spill), dt = timeit(lambda: tk.decode_batch(
-            tg, ll, lens_j, kcap=kcap, beam=60.0, select_mode="pallas",
-            select_q=16, return_spill=True))
-        record("dense pallas q16", kcap, olabs, dt,
-               f"spill={int(np.asarray(spill).sum())}")
-    for kcap, eg in ((256, 512), (512, 512), (512, 1024)):
-        (olabs, sc, spl, ovf), dt = timeit(lambda: sd.decode_batch_split(
-            sg, ll, lens_j, kcap=kcap, beam=60.0, eg=eg, select_q=16))
-        record("split pallas q16", kcap, olabs, dt,
-               f"eg={eg} spill={int(np.asarray(spl).sum())} "
-               f"ovf={int(np.asarray(ovf).sum())}")
-    # round-5 second split tier (VERDICT weak #4): mean degree 3.9 means
-    # ~50% of the 8-arc main table is still padding — narrower main
-    # tables trade pool size against overflow-group traffic
-    for a0 in (2, 4):
-        sg_n = sd.build_split_graph(task.graph, a0=a0)
+            tg, ll, lens_j, kcap=kcap, beam=60.0))
+        record("dense", kcap, olabs, dt)
+    for a0 in (8, 4, 2):
+        sg = sd.build_split_graph(task.graph, a0=a0)
         eg = 4096 // a0
-        (olabs, sc, spl, ovf), dt = timeit(lambda: sd.decode_batch_split(
-            sg_n, ll, lens_j, kcap=512, beam=60.0, eg=eg, select_q=16))
-        record(f"split a0={a0} pallas q16", 512, olabs, dt,
-               f"eg={eg} spill={int(np.asarray(spl).sum())} "
-               f"ovf={int(np.asarray(ovf).sum())}")
+        for kcap in (256, 512):
+            (olabs, sc, ovf), dt = timeit(lambda: sd.decode_batch_split(
+                sg, ll, lens_j, kcap=kcap, beam=60.0, eg=eg))
+            record(f"split a0={a0}", kcap, olabs, dt,
+                   f"eg={eg} ovf={int(np.asarray(ovf).sum())}")
 
     print("\n| path | kcap | WER% | audio-s/s | notes |")
     print("|---|---|---|---|---|")

@@ -6,7 +6,7 @@ with no synthetic stand-ins on the model side (SURVEY.md §3.4):
   → likelihood-gain tying → tied-triphone EM (asr/tritrain.py)
   → triphone HCLG over a large distractor lexicon (native WFST core)
   → reverberant 8-ch eval audio → MVDR beamforming → MFCC/CMN
-  → degree-split + select-kernel PRODUCTION decode → WER.
+  → degree-split PRODUCTION decode → WER.
 
 MATCHED training is load-bearing (diagnosed round 5): AMs trained on
 CLEAN features decode clean eval near-perfectly but collapse on
@@ -22,7 +22,7 @@ beamformer earns its keep under a TRAINED AM — and WER(trained-tri, MVDR)
 <= WER(trained-mono, MVDR) — the tying earns its keep.  The committed
 table lives in PRUNING.md (round-5 section).
 
-Run: /opt/venv/bin/python tools/exp_tri_train.py        (CPU ok)
+Run: python tools/exp_tri_train.py        (CPU ok)
 Optional: NDIST=300 E_UTTS=12 TRAIN_UTTS=60 TRAIN_FRONT=mvdr|clean
 """
 
@@ -66,25 +66,25 @@ def big_lexicon(seed=0):
 
 def main():
     import jax
-    if os.environ.get("BF_TPU") != "1":
+    if os.environ.get("BF_FULL") != "1":
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
     from golden import corpus as gcorpus
     from golden import room as groom
-    from dsr_tpu.asr import phone_task, triphone, tritrain
-    from dsr_tpu.asr.am import gmm as jgmm
-    from dsr_tpu.asr.decoder import split_decoder as sd
-    from dsr_tpu.asr.decoder import topk_decoder as tk
-    from dsr_tpu.asr.fsm import hclg, lm
-    from dsr_tpu.asr.fsm.hclg import SymbolTable
-    from dsr_tpu.asr.fsm.packed import pack
-    from dsr_tpu.asr.train import trainer
-    from dsr_tpu.config import ArrayGeometry, FilterbankConfig
-    from dsr_tpu.ops import beamforming as jbf
-    from dsr_tpu.ops import features as jft
-    from dsr_tpu.ops import filterbank as jfb
-    from dsr_tpu.utils.metrics import WerScorer
+    from dsr.asr import phone_task, triphone, tritrain
+    from dsr.asr.am import gmm as jgmm
+    from dsr.asr.decoder import split_decoder as sd
+    from dsr.asr.decoder import topk_decoder as tk
+    from dsr.asr.fsm import hclg, lm
+    from dsr.asr.fsm.hclg import SymbolTable
+    from dsr.asr.fsm.packed import pack
+    from dsr.asr.train import trainer
+    from dsr.config import ArrayGeometry, FilterbankConfig
+    from dsr.ops import beamforming as jbf
+    from dsr.ops import features as jft
+    from dsr.ops import filterbank as jfb
+    from dsr.utils.metrics import WerScorer
 
     def feats_of(x):
         return np.asarray(jft.cmn(jft.mfcc(np.asarray(x, np.float32), SR)))
@@ -159,12 +159,12 @@ def main():
     fronts = ["single", "mvdr"]
     systems = ["mono", "tri"]
     sc = {(s, f): WerScorer() for s in systems for f in fronts}
-    kcap_tri = min(TRI_KCAP, (sg.num_states // 128) * 128)
+    kcap_tri = min(TRI_KCAP, sg.num_states)
     # overflow budget: max_outdeg=212 → one word-end token wants 26
     # groups; the 256 default silently dropped arcs at word boundaries
     # (exactly where olabels live) and cost the tri system ~40% WER
     eg_tri = int(os.environ.get("TRI_EG", "2048"))
-    tot_spill = tot_ovf = 0
+    tot_ovf = 0
     for ref_words, x in eval_corpus:
         xm = groom.simulate(x, POS, SRCPOS, SR, snr_db=SNR_DB,
                             diffuse_snr_db=DIFFUSE_DB, rng=simrng,
@@ -173,11 +173,10 @@ def main():
         outs = {"single": xm[0], "mvdr": mvdr_of(xm)}
         for f in fronts:
             ft = jnp.asarray(feats_of(outs[f]))
-            # production path: degree-split + select kernel, trained tri AM
+            # production path: degree-split decoder, trained tri AM
             ll_t = jgmm.loglik(tri.params, ft)
-            olabs, _, spills, ovf = sd.decode_split(
+            olabs, _, ovf = sd.decode_split(
                 sg, ll_t, kcap=kcap_tri, beam=TRI_BEAM, eg=eg_tri)
-            tot_spill += int(spills)
             tot_ovf += int(ovf)
             hyp_t = [words.name(int(wd)) for wd in np.asarray(olabs) if wd]
             sc[("tri", f)].add(list(ref_words), hyp_t)
@@ -195,8 +194,8 @@ def main():
     for s in systems:
         for f in fronts:
             print(f"| {s} | {f} | {100 * sc[(s, f)].wer:.2f} |  ({sc[(s, f)]})")
-    print(f"split-decode certificates: spill_frames={tot_spill} "
-          f"overflow_frames={tot_ovf} (eg={eg_tri})")
+    print(f"split-decode certificate: overflow_frames={tot_ovf} "
+          f"(eg={eg_tri})")
     wer = {k: v.wer for k, v in sc.items()}
     ok1 = wer[("tri", "mvdr")] < wer[("tri", "single")]
     ok2 = wer[("tri", "mvdr")] <= wer[("mono", "mvdr")] + 1e-9

@@ -1,22 +1,20 @@
-"""WER-vs-pruning study at LVCSR scale (round-2 VERDICT item 4).
+"""WER-vs-pruning study at LVCSR scale.
 
 Decodes a synthetic-AM eval set through the 532k-state monophone trigram
 HCLG and the tied-triphone HCLG, sweeping the decoder's pruning knobs —
-kcap ∈ {128, 256, 512}, beam ∈ {30, 60}, select path (XLA sorts / Pallas
-q16 / Pallas q8) and approx_topk — with the exact lattice oracle as the
+kcap ∈ {128, 256, 512}, beam ∈ {30, 60} on the dense decoder, plus the
+degree-split production layout — with the exact lattice oracle as the
 floor.  The noise level is chosen so the acoustics are genuinely
-ambiguous (nonzero WER), unlike the near-noiseless in-suite 0-WER gates.
+ambiguous (nonzero WER), unlike the in-suite 0-WER gates.
 
-Writes the result table to PRUNING.md; the shipped defaults (kcap=256,
-Pallas q=16/8) are gated against this study by
-tests/test_prune_defaults.py.
+Writes the WER table to PRUNING.md; the shipped defaults (kcap=256,
+beam=60) are gated against this study by tests/test_prune_defaults.py.
 
-Run on TPU: /opt/venv/bin/python tools/exp_wer_prune.py
+Run: python tools/exp_wer_prune.py
 """
 
 import os
 import sys
-import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -59,11 +57,12 @@ def wer_of(task, sents, olabs, lens, scorer_cls):
 def main():
     import jax.numpy as jnp
 
-    from dsr_tpu.asr import lvcsr
-    from dsr_tpu.asr.am import gmm as jgmm
-    from dsr_tpu.asr.decoder import lattice as jlat
-    from dsr_tpu.asr.decoder import topk_decoder as tk
-    from dsr_tpu.utils.metrics import WerScorer
+    from dsr.asr import lvcsr
+    from dsr.asr.am import gmm as jgmm
+    from dsr.asr.decoder import lattice as jlat
+    from dsr.asr.decoder import split_decoder as sd
+    from dsr.asr.decoder import topk_decoder as tk
+    from dsr.utils.metrics import WerScorer
 
     rng = np.random.default_rng(SEED)
     rows = []
@@ -77,7 +76,6 @@ def main():
         for s in sents])
     llb = jgmm.loglik(params, jnp.asarray(batch.reshape(-1, batch.shape[-1])))
     llb = jnp.reshape(llb, batch.shape[:2] + (task.num_pdfs,))
-    audio = float(lens.sum()) / 125.0
 
     # ---- the exact-lattice oracle floor (kcap=512, no beam) -------------
     oracle_tot = ref_tot = 0
@@ -85,7 +83,7 @@ def main():
         # padded to the common T (ONE compile; the oracle skips padded
         # frames), length-masked like the batch decodes
         out = tk.decode_with_tokens(tg, llb[i], kcap=512, beam=1e9, nlat=4,
-                                    select_mode="xla", length=int(lens[i]))
+                                    length=int(lens[i]))
         lat = jlat.from_topk(out[2], out[3], out[4], tg, out[5], out[6])
         refids = [task.words[w] for w in sents[i]]
         oracle_tot += lat.oracle_errors(refids)
@@ -93,32 +91,19 @@ def main():
     print(f"oracle floor: {oracle_tot}/{ref_tot} = "
           f"{100.0 * oracle_tot / ref_tot:.2f}%", flush=True)
 
-    def run(name, **kw):
-        t0 = time.perf_counter()
-        olabs, _ = tk.decode_batch(tg, llb, lens, **kw)
-        olabs = np.asarray(olabs)
-        dt = time.perf_counter() - t0
-        # warm second run for throughput (first includes compile)
-        t0 = time.perf_counter()
-        olabs2, sc2 = tk.decode_batch(tg, llb, lens, **kw)
-        float(np.asarray(sc2).sum())
-        dt = time.perf_counter() - t0
-        w = wer_of(task, sents, olabs, lens, WerScorer)
-        rows.append((name, kw.get("kcap"), kw.get("beam"),
-                     100.0 * w, audio / dt))
-        print(f"{name:28s} kcap={kw.get('kcap'):4d} beam={kw.get('beam'):6.0f}"
-              f"  WER {100.0 * w:6.2f}%  {audio / dt:7.1f} audio-s/s",
-              flush=True)
+    def record(name, kcap, beam, olabs):
+        w = wer_of(task, sents, np.asarray(olabs), lens, WerScorer)
+        rows.append((name, kcap, beam, 100.0 * w))
+        print(f"{name:28s} kcap={kcap:4d} beam={beam:6.0f}  WER "
+              f"{100.0 * w:6.2f}%", flush=True)
 
     for kcap in (128, 256, 512):
         for beam in (30.0, 60.0):
-            run("xla exact", kcap=kcap, beam=beam, select_mode="xla")
-    for kcap in (128, 256, 512):
-        run("pallas q16", kcap=kcap, beam=60.0, select_mode="pallas",
-            select_q=16)
-    run("pallas q8", kcap=256, beam=60.0, select_mode="pallas", select_q=8)
-    run("approx_topk", kcap=256, beam=60.0, select_mode="xla",
-        approx_topk=True)
+            record("dense", kcap, beam,
+                   tk.decode_batch(tg, llb, lens, kcap=kcap, beam=beam)[0])
+    sg = sd.build_split_graph(task.graph, a0=2)
+    record("split a0=2 eg=896", 256, 60.0, sd.decode_batch_split(
+        sg, llb, lens, kcap=256, beam=60.0, eg=896)[0])
 
     # ---- triphone graph ------------------------------------------------
     tri_rows = []
@@ -134,19 +119,12 @@ def main():
         tll = jgmm.loglik(tparams, jnp.asarray(
             tbatch.reshape(-1, tbatch.shape[-1])))
         tll = jnp.reshape(tll, tbatch.shape[:2] + (-1,))
-        taudio = float(tlens.sum()) / 125.0
         for kcap in (128, 256, 512):
-            t0 = time.perf_counter()
             olabs, _ = tk.decode_batch(ttg, tll, tlens, kcap=kcap, beam=60.0)
-            olabs = np.asarray(olabs)
-            t0 = time.perf_counter()
-            o2, s2 = tk.decode_batch(ttg, tll, tlens, kcap=kcap, beam=60.0)
-            float(np.asarray(s2).sum())
-            dt = time.perf_counter() - t0
-            w = wer_of(ttask, tsents, olabs, tlens, WerScorer)
-            tri_rows.append((kcap, 100.0 * w, taudio / dt))
-            print(f"triphone kcap={kcap:4d}  WER {100.0 * w:6.2f}%  "
-                  f"{taudio / dt:7.1f} audio-s/s", flush=True)
+            w = wer_of(ttask, tsents, np.asarray(olabs), tlens, WerScorer)
+            tri_rows.append((kcap, 100.0 * w))
+            print(f"triphone kcap={kcap:4d}  WER {100.0 * w:6.2f}%",
+                  flush=True)
     except Exception as e:
         print("triphone sweep skipped:", repr(e))
 
@@ -154,33 +132,29 @@ def main():
             os.path.abspath(__file__))), "PRUNING.md"), "w") as f:
         f.write(
             "# WER vs pruning at LVCSR scale\n\n"
-            f"Produced by `tools/exp_wer_prune.py` on the real chip: "
+            f"Produced by `tools/exp_wer_prune.py`: "
             f"{E_UTTS} in-domain utterances, synthetic AM at noise="
             f"{NOISE} (scale 4.0 — genuinely ambiguous acoustics), "
             "532k-state trigram HCLG.\n\n"
             f"**Exact lattice oracle floor (kcap=512, nlat=4): "
             f"{100.0 * oracle_tot / ref_tot:.2f}% WER** — the best any "
             "pruning setting could reach on this set.\n\n"
-            "| path | kcap | beam | WER % | audio-s/s/chip |\n"
-            "|---|---|---|---|---|\n")
-        for name, kcap, beam, w, thr in rows:
-            f.write(f"| {name} | {kcap} | {beam:.0f} | {w:.2f} "
-                    f"| {thr:.1f} |\n")
+            "| path | kcap | beam | WER % |\n"
+            "|---|---|---|---|\n")
+        for name, kcap, beam, w in rows:
+            f.write(f"| {name} | {kcap} | {beam:.0f} | {w:.2f} |\n")
         if tri_rows:
             f.write("\nTied-triphone HCLG (same protocol):\n\n"
-                    "| kcap | WER % | audio-s/s/chip |\n|---|---|---|\n")
-            for kcap, w, thr in tri_rows:
-                f.write(f"| {kcap} | {w:.2f} | {thr:.1f} |\n")
+                    "| kcap | WER % |\n|---|---|\n")
+            for kcap, w in tri_rows:
+                f.write(f"| {kcap} | {w:.2f} |\n")
         f.write(
             "\n## Reading\n\n"
-            "- The shipped defaults (kcap=256, beam=60, Pallas select) are "
-            "gated by `tests/test_prune_defaults.py`: kcap=256 must be "
-            "within 1% absolute WER of kcap=512, and the Pallas q=16/q=8 "
-            "paths must match the exact sort path's WER at the default "
-            "operating point.\n"
-            "- bench.py's decode metric uses kcap=256/beam=40 with the "
-            "Pallas q=16 select (q=8 reported as a variant with its "
-            "measured spill rate).\n")
+            "- The shipped defaults (kcap=256, beam=60) are gated by "
+            "`tests/test_prune_defaults.py`: kcap=256 must be within 1% "
+            "absolute WER of kcap=512, and the degree-split decoder must "
+            "decode the dense decoder's words at the default operating "
+            "point.\n")
     print("wrote PRUNING.md")
 
 
